@@ -1,6 +1,6 @@
-"""ceres_tpu — a TPU-native nonlinear least-squares framework.
+"""ceres_tpu — a JAX nonlinear least-squares framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of Ceres Solver
+A from-scratch JAX/XLA re-design of the capabilities of Ceres Solver
 (reference: /root/reference, C++/CUDA). Not a port: the pointer-graph of
 parameter/residual blocks becomes batched pytree "residual families", Jet
 dual-number autodiff becomes `jax.jacfwd` over `vmap`ped residual kernels,
@@ -20,14 +20,19 @@ Main entry points
 
 import os
 
-# Nonlinear least squares at Ceres-equivalent tolerances (1e-6 relative cost,
-# NIST LRE ~9-10 digits) requires float64 accumulation. TPU executes f64 on
-# the vector unit; the hot matmuls are dispatched in f32/bf16 with iterative
-# refinement where profitable (see ceres_tpu.linear.mixed_precision).
-if os.environ.get("CERES_TPU_NO_X64", "0") != "1":
-    import jax
+import jax
 
+# Precision policy, in one place:
+# - Nonlinear least squares at Ceres-equivalent tolerances (1e-6 relative
+#   cost, NIST LRE ~9-10 digits) requires float64, so x64 is on.
+# - float32 (``SolverOptions.evaluation_dtype``) is an opt-in per solve.
+#   Its matrix products run in full f32: "highest" keeps GPUs from
+#   rounding f32 operands to TF32 (~3 decimal digits), which would break
+#   the symmetry and accuracy of the Schur complement and of the one-hot
+#   reductions of gradients and J'J blocks.
+if os.environ.get("CERES_TPU_NO_X64", "0") != "1":
     jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_default_matmul_precision", "highest")
 
 from ceres_tpu.types import (  # noqa: E402
     LinearSolverOrderingType,

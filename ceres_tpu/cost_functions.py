@@ -1,6 +1,6 @@
 """Cost-function adapters and stock residuals.
 
-TPU-native analog of the reference's functor machinery. In this
+JAX analog of the reference's functor machinery. In this
 framework a "cost function" is any jnp-pure callable, so the wrapper
 zoo collapses into higher-order functions:
 
@@ -98,7 +98,7 @@ def analytic_cost(residual_fn: Callable, jacobian_fn: Callable) -> Callable:
     """User-supplied analytic Jacobians (SizedCostFunction::Evaluate,
     include/ceres/sized_cost_function.h + examples/helloworld_analytic_diff.cc).
 
-    The TPU-native formulation: attach the hand-written Jacobian as a
+    The batched formulation: attach the hand-written Jacobian as a
     ``jax.custom_jvp`` rule, so the evaluator's fused ``vmap(jacfwd)``
     pipeline consumes it transparently — same batching, same manifold
     chain rule, no separate evaluation path.

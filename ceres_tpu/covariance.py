@@ -1,6 +1,6 @@
 """Post-solve covariance estimation.
 
-TPU-native analog of ``include/ceres/covariance.h:247-470`` and
+JAX analog of ``include/ceres/covariance.h:247-470`` and
 ``internal/ceres/covariance_impl.cc``: computes blocks of
 inverse(J'J) at the solution. Two algorithms:
 
@@ -8,7 +8,7 @@ inverse(J'J) at the solution. Two algorithms:
   reciprocal-condition-number thresholding and null-space handling —
   the rank-deficient-safe path.
 - SPARSE_QR analog (covariance_impl.cc:536,796): the reference factors J
-  with SuiteSparse/Eigen QR; on TPU we use one dense QR of the (tall)
+  with SuiteSparse/Eigen QR; here one dense QR of the (tall)
   Jacobian — XLA QR runs on device — which serves the same
   full-rank fast path.
 
@@ -71,7 +71,7 @@ class Covariance:
         """Compute covariance for the requested block pairs.
 
         The reference computes only the requested sparsity
-        (covariance_impl.cc:361); at TPU-relevant sizes the full tangent
+        (covariance_impl.cc:361); at moderate sizes the full tangent
         covariance is one device matmul, so we form inverse(J'J) once and
         slice blocks out of it.
         """
@@ -109,7 +109,7 @@ class Covariance:
         # column with preconditioned CG — the reference computes only
         # the requested sparsity with sparse QR
         # (covariance_impl.cc:361,536-796); this is the O(nnz)-memory
-        # TPU analog.
+        # analog.
         if (
             self.options.algorithm_type == CovarianceAlgorithmType.SPARSE_QR
             and covariance_blocks
@@ -247,7 +247,7 @@ class Covariance:
         """Scalable generic covariance: columns of inverse(J'J) via
         Jacobi-preconditioned CG on the normal equations, matrix-free
         (JacobianContext.normal_matvec) — O(nnz) memory, no dense J.
-        The TPU analog of the reference computing only the requested
+        The analog of the reference computing only the requested
         covariance sparsity with sparse QR (covariance_impl.cc:361,536).
         Returns True/False on success/failure, or None to fall through.
         """

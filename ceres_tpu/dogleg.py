@@ -1,6 +1,6 @@
 """Dogleg trust-region strategy (traditional + two-dimensional subspace).
 
-TPU-native analog of ``internal/ceres/dogleg_strategy.{h,cc}`` (Shultz,
+JAX analog of ``internal/ceres/dogleg_strategy.{h,cc}`` (Shultz,
 Schnabel & Byrd subspace dogleg): the Cauchy point, Gauss-Newton step and
 interpolants are jitted XLA computations over the batched Jacobian
 context; the scalar state machine (radius, regularization mu, reuse flag)

@@ -1,6 +1,6 @@
 """Gradient checking: analytic vs numeric Jacobians.
 
-TPU-native analog of ``include/ceres/gradient_checker.h:66`` and
+JAX analog of ``include/ceres/gradient_checker.h:66`` and
 ``internal/ceres/gradient_checking_cost_function.{h,cc}:105``: compares the
 autodiff Jacobian of every residual family against central finite
 differences, in the tangent space (local jacobians), and reports the worst

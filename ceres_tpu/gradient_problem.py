@@ -1,6 +1,6 @@
 """General unconstrained minimization of f(x) with optional manifold.
 
-TPU-native analog of ``include/ceres/gradient_problem.h:92``,
+JAX analog of ``include/ceres/gradient_problem.h:92``,
 ``gradient_problem_solver.{h,cc}:99-150`` and
 ``internal/ceres/gradient_problem_evaluator.h``: wraps a first-order
 function in an oracle and runs the line-search minimizer. The gradient

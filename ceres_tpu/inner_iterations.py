@@ -1,6 +1,6 @@
 """Inner iterations: coordinate descent over independent sets.
 
-TPU-native analog of ``internal/ceres/coordinate_descent_minimizer.{h,cc}``
+JAX analog of ``internal/ceres/coordinate_descent_minimizer.{h,cc}``
 (+ ``parameter_block_ordering.cc`` independent-set construction): the
 reference partitions parameter blocks into independent sets (no two
 blocks of a set share a residual) and runs a full per-block trust-region

@@ -1,6 +1,6 @@
 """Cubic Hermite (Catmull-Rom) interpolation of sampled functions/images.
 
-TPU-native analog of ``include/ceres/cubic_interpolation.h``:
+JAX analog of ``include/ceres/cubic_interpolation.h``:
 ``CubicHermiteSpline`` (:65-91), ``Grid1D`` (:184), ``CubicInterpolator``
 (:124), ``Grid2D`` (:381), ``BiCubicInterpolator`` (:252).
 

@@ -1,6 +1,6 @@
 """Line-search minimizer: L-BFGS / BFGS / nonlinear CG / steepest descent.
 
-TPU-native analog of ``internal/ceres/line_search_minimizer.cc:87-481``,
+JAX analog of ``internal/ceres/line_search_minimizer.cc:87-481``,
 ``line_search_direction.cc:44-230``, ``line_search.{h,cc}`` (Armijo and
 strong-Wolfe searches with polynomial interpolation) and
 ``low_rank_inverse_hessian.{h,cc}`` (L-BFGS two-loop recursion).

@@ -1,6 +1,6 @@
 """Linear solvers for the trust-region subproblem.
 
-TPU-native analog of the reference's linear solver layer
+JAX analog of the reference's linear solver layer
 (``internal/ceres/linear_solver.h``, §2.5 of SURVEY.md). All solvers solve
 
     min_y || J y - f ||^2 + || D y ||^2

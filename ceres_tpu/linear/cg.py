@@ -1,6 +1,6 @@
 """Generic preconditioned conjugate gradients, fully on-device.
 
-TPU-native analog of the reference's templated PCG
+JAX analog of the reference's templated PCG
 (``internal/ceres/conjugate_gradients_solver.h:108-300``): same update
 order, Nash & Sofer Q-based termination (zeta test), r-tolerance test,
 residual refresh every ``residual_reset_period`` iterations, and the

@@ -1,6 +1,6 @@
 """CGNR: conjugate gradients on the normal equations.
 
-TPU-native analog of ``internal/ceres/cgnr_solver.{h,cc}:84-121``: solves
+JAX analog of ``internal/ceres/cgnr_solver.{h,cc}:84-121``: solves
 
     (J'J + D'D) y = J'f
 

@@ -1,6 +1,6 @@
 """Dense linear solvers: QR and normal-equations Cholesky.
 
-TPU-native analog of ``internal/ceres/dense_qr_solver.{h,cc}`` /
+JAX analog of ``internal/ceres/dense_qr_solver.{h,cc}`` /
 ``dense_qr.h:62-152`` and ``dense_normal_cholesky_solver.{h,cc}`` /
 ``dense_cholesky.h:58-246``. The reference dispatches to
 Eigen/LAPACK/cuSOLVER; here both paths are single XLA computations
@@ -24,7 +24,7 @@ def solve_dense_normal_cholesky(
 
     Analog of DenseNormalCholeskySolver (dense_normal_cholesky_solver.cc):
     forms the normal equations (the reference uses small_blas GEMM; here one
-    MXU matmul) and factorizes. The arbitrary-rhs form backs mixed-precision
+    matmul) and factorizes. The arbitrary-rhs form backs mixed-precision
     iterative refinement (iterative_refiner.{h,cc}).
     """
     J = ctx.to_dense()

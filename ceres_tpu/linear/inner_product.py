@@ -1,6 +1,6 @@
 """Device-side assembly of the normal-equation blocks H = J'J.
 
-TPU-native analog of the reference's ``InnerProductComputer``
+JAX analog of the reference's ``InnerProductComputer``
 (``inner_product_computer.h:64``): instead of shipping the whole block
 Jacobian to the host every LM iteration (O(nnz(J)) transfer — the r3
 SPARSE_NORMAL_CHOLESKY path), the DEVICE reduces the per-instance
@@ -71,7 +71,6 @@ def build_normal_plan(program) -> NormalPlan:
     arg-pair and build the segment-reduction plans (the symbolic half of
     inner_product_computer.cc ComputeOffsetsAndCreateResultMatrix)."""
     nt = program.num_tangent
-    _pallas_ok = getattr(program, "mesh", None) is None
     sites: List[NormalSite] = []
     for fi, fam in enumerate(program.families):
         # Host copies of the tangent index tables (B, T_j).
@@ -123,9 +122,7 @@ def build_normal_plan(program) -> NormalPlan:
                             j2=b,
                             diagonal=diagonal,
                             transpose=transpose,
-                            plan=build_reduce_plan(
-                                seg, C, allow_pallas=_pallas_ok
-                            ),
+                            plan=build_reduce_plan(seg, C),
                             rows=jnp.asarray(rows),
                             cols=jnp.asarray(cols),
                         )

@@ -1,10 +1,10 @@
 """Preconditioners for the iterative solvers.
 
-TPU-native analog of ``internal/ceres/preconditioner.h:51`` and
+JAX analog of ``internal/ceres/preconditioner.h:51`` and
 ``block_jacobi_preconditioner.{h,cc}``. The block-Jacobi preconditioner
 inverts the block diagonal of J'J + D'D: blocks are grouped by tangent size
 into (G, T, T) batches, factorized with one vmapped Cholesky per size group
-(a batched MXU-friendly op instead of the reference's per-block loop).
+(one batched op instead of the reference's per-block loop).
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ def block_jacobi_preconditioner(
     slice_of = getattr(bd_groups, "slice_of", lambda _T: None)
 
     def rows_of(v, T, idx):
-        # contiguous group -> slice+reshape (free to compile); a 200k-row
-        # 2-D gather costs ~60 s of TPU compile (compile_micro3.py).
+        # contiguous group -> slice+reshape (free to compile) instead of
+        # a 200k-row 2-D gather, which is slow to compile.
         sl = slice_of(T)
         if sl is not None:
             start, G = sl
@@ -68,8 +68,7 @@ def block_jacobi_preconditioner(
             mat = mat + jax.vmap(jnp.diag)(Db * Db)
         # Closed-form/unrolled SPD inverses (invert_psd_matrix.h analog):
         # the apply becomes one einsum instead of a batched
-        # TriangularSolve, which is pathologically slow on TPU for tiny
-        # blocks inside the CG loop.
+        # TriangularSolve of tiny blocks inside the CG loop.
         inverses[T] = spd_inverse(mat)
 
     def apply(v: jax.Array) -> jax.Array:
@@ -103,7 +102,7 @@ def subset_preconditioner(
 
     The reference factors the subset normal matrix with sparse Cholesky;
     here it is one dense assembly via masked scatter-adds + one dense
-    Cholesky — the TPU trade (SURVEY.md §7 hard part (b)).
+    Cholesky — the accelerator trade (SURVEY.md §7 hard part (b)).
     """
     n = ctx.num_tangent
     dt = ctx.residuals[0].dtype

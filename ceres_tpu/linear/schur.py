@@ -1,6 +1,6 @@
 """Schur-complement solvers for bundle-adjustment-structured problems.
 
-TPU-native analog of the reference's Schur stack:
+JAX analog of the reference's Schur stack:
 ``schur_eliminator.h:52-216`` / ``schur_eliminator_impl.h`` (chunked
 elimination of e-blocks), ``implicit_schur_complement.{h,cc}:75-145``
 (matrix-free S·x), ``iterative_schur_complement_solver.cc:64-155`` (PCG on
@@ -19,7 +19,7 @@ is four family-sized einsum passes plus one batched (Te,Te) Cholesky —
 no per-chunk loop, no locks (the reference's rhs_locks_,
 schur_eliminator.h:345-358, disappear because the scatter-add is one XLA
 op). The dense S for DENSE_SCHUR is vmap(S·e_i) over identity columns:
-one big batched MXU computation instead of 43 generated specializations.
+one big batched computation instead of 43 generated specializations.
 """
 
 from __future__ import annotations
@@ -44,11 +44,11 @@ from ceres_tpu.types import LinearSolverType, PreconditionerType
 # Auto-explicit-S bar: with few f coordinates (small camera count), CG's
 # per-trip implicit S·x (4 family-wide Jacobian sweeps,
 # implicit_schur_complement.cc:106-145) costs far more than ONE explicit
-# assembly per linear solve + dense (nf, nf) matvecs on the MXU. The
-# reference leaves this to the user (use_explicit_schur_complement,
-# solver.h:540-556 "can result in a significant performance boost when
-# the number of cameras is small"); on TPU the crossover is sharp enough
-# to make it the default policy below this reduced-system size.
+# assembly per linear solve + dense (nf, nf) matvecs. The reference
+# leaves this to the user (use_explicit_schur_complement, solver.h:540-556
+# "can result in a significant performance boost when the number of
+# cameras is small"); here it is the default policy below this
+# reduced-system size. The value is to be re-tuned on the GPU.
 EXPLICIT_S_AUTO_MAX_NF = 2048
 
 
@@ -98,7 +98,7 @@ class SchurStructure:
 
     Registered as a pytree and passed through jit as an ARGUMENT, never
     captured in closures: embedding these (P,Te)/(B,) index arrays as HLO
-    literal constants makes TPU compilation of large problems
+    literal constants makes compilation of large problems
     pathologically slow."""
 
     num_points: int
@@ -142,9 +142,9 @@ class SchurStructure:
     point_sharding: Optional[object] = None
     # Static contiguity of the e coordinates: (start,) when e_group is
     # one ascending range (BAL layout). Point-space gathers/scatters
-    # then lower to dynamic slices — a (P, Te) general gather/scatter at
-    # 200k points costs ~60 s of TPU COMPILE time each
-    # (benchmarks/compile_micro3.py). Meta field.
+    # then lower to dynamic slices instead of (P, Te) general
+    # gathers/scatters, which are slow to compile at 200k points. Meta
+    # field.
     e_slice: Optional[Tuple[int]] = None
 
 
@@ -296,10 +296,8 @@ def build_schur_structure(
     # Scatter-free reduction plans (one-hot matmul / ELL gather+sum).
     from ceres_tpu.ops.reduce import build_reduce_plan
 
-    # Pallas sorted-segment plans only single-device (not partitionable).
-    _pallas_ok = getattr(program, "mesh", None) is None
     e_plan = tuple(
-        build_reduce_plan(np.asarray(ep), P, allow_pallas=_pallas_ok)
+        build_reduce_plan(np.asarray(ep), P)
         if ep is not None
         else None
         for ep in e_pos
@@ -315,9 +313,7 @@ def build_schur_structure(
                 T = fam.structure.tangent_sizes[j]
                 plans.append(
                     build_reduce_plan(
-                        np.asarray(fp),
-                        f_group_sizes.get(T, 0),
-                        allow_pallas=_pallas_ok,
+                        np.asarray(fp), f_group_sizes.get(T, 0)
                     )
                 )
         f_plan.append(tuple(plans))
@@ -547,8 +543,8 @@ class SchurOperator:
         # Explicit SPD inverse of the point blocks (invert_psd_matrix.h:44,
         # schur_eliminator_impl.h e-block inversion): closed-form for the
         # tiny sizes, so every downstream solve is one einsum that XLA
-        # fuses into the CG loop. Batched XLA Cholesky/TriangularSolve on
-        # (P, 3, 3) operands is orders of magnitude slower on TPU.
+        # fuses into the CG loop, instead of a batched XLA
+        # Cholesky/TriangularSolve on (P, 3, 3) operands.
         from ceres_tpu.ops.small_linalg import spd_inverse
 
         self._ete_inv = self._constrain_pt(spd_inverse(ete))
@@ -565,8 +561,8 @@ class SchurOperator:
 
     def _gather_e(self, v: jax.Array) -> jax.Array:
         """(P, Te) view of the e coordinates of a tangent vector —
-        dynamic_slice when e_slice says they are contiguous (a (P, Te)
-        general gather costs ~60 s of TPU compile)."""
+        dynamic_slice when e_slice says they are contiguous (cheaper to
+        compile than a (P, Te) general gather)."""
         ss = self.ss
         if ss.e_slice is not None:
             (start,) = ss.e_slice
@@ -818,7 +814,7 @@ class SchurOperator:
         cameras. ``cluster_groups`` is a (C, m) int32 matrix of tangent
         coordinate indices per cluster, padded with ``num_tangent``
         (dummy). Blocks are extracted exactly by batched S·e_i products
-        (one vmapped computation — the TPU replacement for the
+        (one vmapped computation — the replacement for the
         reference's per-cluster sparse factorization) and factorized with
         a batched Cholesky.
         """
@@ -864,7 +860,7 @@ class SchurOperator:
         M = block tridiagonal part of S along the maximum-weight linear
         forest of the cluster visibility graph.
 
-        TPU shape: the forest is degree-limited to paths (host side), so
+        Batched shape: the forest is degree-limited to paths (host side), so
         M decomposes into independent block-tridiagonal chains. Diagonal
         blocks A_k and sub-diagonal blocks B_k are extracted with batched
         S.e_i probes, factorized as a block LDL' via one lax.scan per

@@ -1,6 +1,6 @@
 """One-pass explicit Schur-complement assembly.
 
-TPU-native analog of the reference's chunked explicit eliminator
+JAX analog of the reference's chunked explicit eliminator
 (``schur_eliminator.h:108-152`` math, ``schur_eliminator_impl.h:177-330``
 implementation): the reduced camera system
 
@@ -9,8 +9,7 @@ implementation): the reduced camera system
 is assembled in ONE pass over the residual blocks instead of probing S
 column-by-column with vmapped ``S . e_i`` products. The reference loops
 over e-block chunks under locks; here every term is a flat-batched
-einsum plus a SORTED segment reduction (ops/pallas_segment block-CSR
-kernel on TPU, ELL gather on CPU):
+product plus a host-planned segment reduction (``ops/reduce.py``):
 
 - the ``F'F`` term permutes the per-instance Jacobian rows into
   cell-sorted order (host-built permutation) and segment-reduces the
@@ -21,22 +20,19 @@ kernel on TPU, ELL gather on CPU):
   ``-W_a' M_p^{-1} W_b`` products into camera-pair cells.
 
 Layout rule (r5): contributions and cell blocks are kept FLAT —
-``(N, T1*T2)`` — end to end. XLA tile-pads a trailing ``(.., 9, 9)``
-pair of dims to (16, 128) (57x memory expansion at BAL scale, measured:
-a materialized (3M, 9, 9) f32 intermediate costs 24.6 GB); a trailing
-81 pads only to the lane remainder. The r4 ELL formulation tripped this
-cliff inside the fused solve (XLA rematerialized the near-OOM graph:
-562 ms/iter); the flat form runs the same math in ~30 ms.
+``(N, T1*T2)`` — end to end, so no layout ever tiles a trailing
+``(.., 9, 9)`` pair of dims: a materialized (3M, 9, 9) intermediate can
+pad to many times its size and push the fused solve into
+rematerialization.
 
 All pair/cell structures are built once on the host from the (static)
-visibility pattern; assembly itself is pure XLA + the Pallas segment
-kernel with unique-index placement only.
+visibility pattern; assembly itself is pure XLA with unique-index
+placement only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Dict, List, Optional, Tuple
 
 import jax
@@ -63,8 +59,7 @@ class FtFSite:
     diagonal: bool
     sym: bool
     # ``perm`` is None when the reduce plan consumes the contributions
-    # in NATURAL instance order (gather-free: the plan kind does not
-    # require sortedness — onehot/onehot_tiled/ell). The cell-sorting
+    # in NATURAL instance order (gather-free: onehot/ell). The cell-sorting
     # row gather at BAL scale costs more than the reduction itself, so
     # the builder prefers a natural-order plan whenever one exists.
     perm: Optional[jax.Array]  # (Bp,) int32 cell-sorted rows, or None
@@ -310,8 +305,6 @@ def build_explicit_plan(program, ss) -> ExplicitSchurPlan:
                     perm = None
                     plan = None
                     if sel.size == B:
-                        # (build_reduce_plan only picks the sorted kinds
-                        # when the ids really are sorted.)
                         plan0 = build_reduce_plan(ids, C)
                         if plan0.kind != "scatter":
                             plan = plan0
@@ -655,93 +648,18 @@ class CellSite:
 # graph-size tradeoff flips and the einsum fallback wins.
 _FLAT_LOOP_MAX = 16
 
-# Monomial count cap for the MXU bilinear path: beyond this the constant
-# selection matrices outgrow their usefulness and the loop/einsum forms
-# win.
-_MXU_MONOMIAL_MAX = 4096
-
-
-def _use_mxu_bilinear() -> bool:
-    """MXU lowering for the flat bilinear contractions.
-
-    The repeat/tile lane broadcasts below are semantically free but on
-    TPU each is a cross-lane relayout; profiled at BAL scale the
-    assembly's combo/W/Y stages ran at ~5% of HBM bandwidth, entirely
-    relayout-bound (benchmarks/assembly_profile2.py). Expressing the
-    same contraction as ((X@A)*(Y@B))@S with tiny 0/1 selection
-    constants keeps every array 2-D/lane-packed and runs on the MXU
-    instead. On CPU the extra flops are pure loss, so the loop form
-    stays. Override with CERES_BILINEAR=mxu|loop (for equivalence
-    tests)."""
-    import os
-
-    env = os.environ.get("CERES_BILINEAR", "")
-    if env == "mxu":
-        return True
-    if env == "loop":
-        return False
-    return jax.default_backend() != "cpu"
-
-
-@functools.lru_cache(maxsize=None)
-def _outer_consts(K: int, T1: int, T2: int):
-    """0/1 selection constants for _flat_outer: monomial c=(k,i,j)."""
-    m = K * T1 * T2
-    A = np.zeros((K * T1, m), np.float32)
-    B = np.zeros((K * T2, m), np.float32)
-    S = np.zeros((m, T1 * T2), np.float32)
-    for k in range(K):
-        for i in range(T1):
-            for j in range(T2):
-                c = (k * T1 + i) * T2 + j
-                A[k * T1 + i, c] = 1.0
-                B[k * T2 + j, c] = 1.0
-                S[c, i * T2 + j] = 1.0
-    return A, B, S
-
-
-@functools.lru_cache(maxsize=None)
-def _minv_consts(Te: int, T: int):
-    """Selection constants for _flat_apply_minv: monomial c=(e,f,t)."""
-    m = Te * Te * T
-    A = np.zeros((Te * Te, m), np.float32)
-    B = np.zeros((Te * T, m), np.float32)
-    S = np.zeros((m, Te * T), np.float32)
-    for e in range(Te):
-        for f in range(Te):
-            for t in range(T):
-                c = (e * Te + f) * T + t
-                A[e * Te + f, c] = 1.0
-                B[f * T + t, c] = 1.0
-                S[c, e * T + t] = 1.0
-    return A, B, S
-
-
-def _bilinear_mxu(X: jax.Array, Y: jax.Array, consts) -> jax.Array:
-    """((X@A) * (Y@B)) @ S with f32-exact MXU matmuls (the 0/1 constants
-    are exact in any precision; HIGHEST keeps the DATA from rounding
-    through bf16)."""
-    A, B, S = (jnp.asarray(c, X.dtype) for c in consts)
-    hi = jax.lax.Precision.HIGHEST
-    xa = jnp.dot(X, A, precision=hi)
-    yb = jnp.dot(Y, B, precision=hi)
-    return jnp.dot(xa * yb, S, precision=hi)
-
-
 def _flat_outer(A: jax.Array, Bm: jax.Array, K: int, T1: int, T2: int):
     """Flat batched outer-product contraction
     ``out[p, i*T2+j] = sum_k A[p, k*T1+i] * B[p, k*T2+j]``
-    built from 2-D repeat/tile broadcasts (CPU) or MXU selection
-    matmuls (TPU, see _use_mxu_bilinear) ONLY.
+    built from 2-D repeat/tile broadcasts ONLY: XLA fuses the K terms
+    into one elementwise kernel with exact f32 products.
 
     The einsum('pki,pkj->pij') + reshape form is mathematically
     identical, but XLA's fusion boundary can materialize the (P, T1, T2)
-    intermediate, whose trailing dims tile-pad to (8,128) — 57x memory
-    at BAL scale (the r4 562 ms/iter + OOM cliff). Every array here is
-    rank-2 with a T1*T2-lane minor, which packs.
+    intermediate with padded trailing dims. Every array here is rank-2
+    with a T1*T2 minor. (A selection-matmul form ((A@Sa)*(B@Sb))@S was
+    8.5x slower over the whole assembly on an H100; see PERF.md.)
     """
-    if K * T1 * T2 <= _MXU_MONOMIAL_MAX and _use_mxu_bilinear():
-        return _bilinear_mxu(A, Bm, _outer_consts(K, T1, T2))
     out = None
     for k in range(K):
         a = jax.lax.slice_in_dim(A, k * T1, (k + 1) * T1, axis=1)
@@ -756,13 +674,6 @@ def _flat_pair_product(E: jax.Array, F: jax.Array) -> jax.Array:
     (B, r, T) without materializing a (B, Te, T) tail (see _flat_outer)."""
     B, r, Te = E.shape
     T = F.shape[2]
-    if r * Te * T <= _MXU_MONOMIAL_MAX and _use_mxu_bilinear():
-        # monomial c=(k,e,t) == _outer_consts(K=r, T1=Te, T2=T)
-        return _bilinear_mxu(
-            E.reshape(B, r * Te),
-            F.reshape(B, r * T),
-            _outer_consts(r, Te, T),
-        )
     if r > _FLAT_LOOP_MAX:
         return jnp.einsum("bre,brt->bet", E, F).reshape(B, Te * T)
     out = None
@@ -777,8 +688,6 @@ def _flat_pair_product(E: jax.Array, F: jax.Array) -> jax.Array:
 def _flat_apply_minv(minv_flat: jax.Array, w_flat: jax.Array, Te: int,
                      T: int) -> jax.Array:
     """Flat ``y[b, e*T+t] = sum_f minv[b, e*Te+f] * w[b, f*T+t]``."""
-    if Te * Te * T <= _MXU_MONOMIAL_MAX and _use_mxu_bilinear():
-        return _bilinear_mxu(minv_flat, w_flat, _minv_consts(Te, T))
     out = None
     for e in range(Te):
         acc = None
@@ -840,9 +749,8 @@ def compute_cell_blocks(op, plan: ExplicitSchurPlan):
         T2 = FB.shape[2]
         C = s.rows.shape[0]
         # flat (B, T1*T2) product in NATURAL instance order; the
-        # cell-sorting row gather only happens when the plan kind
-        # requires sorted input (perm is None for the gather-free
-        # onehot/onehot_tiled/ell plans).
+        # cell-sorting row gather only happens when the natural-order
+        # plan would be a scatter (perm is None for onehot/ell plans).
         X = _flat_pair_product(FA, FB)
         if s.perm is not None:
             X = X[s.perm]
@@ -892,25 +800,8 @@ def compute_cell_blocks(op, plan: ExplicitSchurPlan):
             continue
         Wa = W[g.T1][g.a_idx]  # (Pp, Te*T1) flat — narrow operand rows
         Yb = Y[g.T2][g.b_idx]
-        if g.plan.kind == "sorted_blocked" and _use_mxu_bilinear():
-            # Fused pair-contraction kernel: outer products form in
-            # VMEM inside the windowed reduce — the (Pp, T1*T2)
-            # contribution array never exists in HBM
-            # (schur_eliminator_impl.h:228-330 analog; the r4 verdict's
-            # named fix).
-            from ceres_tpu.ops.pallas_segment import (
-                outer_segment_sum_blocked,
-            )
-
-            red = outer_segment_sum_blocked(
-                Wa, Yb, g.plan, Te, g.T1, g.T2
-            )
-            blocks_out.append(-red[: g.num_cells])
-        else:
-            contrib = _flat_outer(Wa, Yb, Te, g.T1, g.T2)
-            blocks_out.append(
-                -apply_reduce(g.plan, contrib)[: g.num_cells]
-            )
+        contrib = _flat_outer(Wa, Yb, Te, g.T1, g.T2)
+        blocks_out.append(-apply_reduce(g.plan, contrib)[: g.num_cells])
 
     return sites, blocks_out
 
@@ -924,9 +815,8 @@ def assemble_reduced_system(op, plan: ExplicitSchurPlan):
     Placement: when ``plan.grid_ok``, per-cell FLAT blocks are GATHERED
     into a dense (n1, n2, T1*T2) grid per size-group rectangle, unpacked
     to the (n1*T1, n2*T2) rectangle, and placed with a static-offset
-    dynamic-update-slice — XLA scatters run near-serially on TPU
-    (element-at-a-time updates), while the grid gather + slice write
-    streams at memory bandwidth. Assembly then happens in the
+    dynamic-update-slice instead of an element-at-a-time scatter; the
+    grid gather + slice write streams at memory bandwidth. Assembly then happens in the
     size-grouped basis and is unpermuted once at the end (identity for
     single-f-size problems like BAL).
     """

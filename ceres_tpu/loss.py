@@ -1,6 +1,6 @@
 """Robust loss functions rho(s) and the Triggs corrector.
 
-TPU-native analog of the reference's ``include/ceres/loss_function.h:86-432``
+JAX analog of the reference's ``include/ceres/loss_function.h:86-432``
 and ``internal/ceres/corrector.{h,cc}``. Each loss evaluates
 ``rho(s) -> (rho, rho', rho'')`` elementwise on a JAX array of squared
 residual norms, so a whole residual family is robustified in one fused

@@ -1,6 +1,6 @@
 """Manifolds: Plus/Minus charts between ambient and tangent spaces.
 
-TPU-native analog of the reference's ``include/ceres/manifold.h:148-411``,
+JAX analog of the reference's ``include/ceres/manifold.h:148-411``,
 ``sphere_manifold.h``, ``line_manifold.h``, ``product_manifold.h`` and
 ``internal/{sphere_manifold_functions.h, householder_vector.h}``.
 

@@ -1,6 +1,6 @@
 """Fields-of-Experts image denoising.
 
-TPU-native analog of ``examples/denoising.cc`` +
+JAX analog of ``examples/denoising.cc`` +
 ``examples/fields_of_experts.{h,cc}`` + ``examples/pgm_image.h``: MAP
 denoising with a quadratic data term
 

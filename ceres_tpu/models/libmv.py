@@ -1,6 +1,6 @@
 """libmv bundle adjustment problems (Blender motion tracking).
 
-TPU-native analog of ``examples/libmv_bundle_adjuster.cc``: loads the
+JAX analog of ``examples/libmv_bundle_adjuster.cc``: loads the
 binary libmv problem format (in-tree instances
 ``data/libmv-ba-problems/problem_0{1,2,3}.bin``), builds the
 OpenCV-intrinsics reprojection problem (shared 8-parameter intrinsics

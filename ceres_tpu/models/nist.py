@@ -1,6 +1,6 @@
 """NIST StRD nonlinear regression suite.
 
-TPU-native analog of ``examples/nist.cc``: parses the NIST .dat files,
+JAX analog of ``examples/nist.cc``: parses the NIST .dat files,
 builds one batched residual family per problem, solves from each certified
 start, and scores the log-relative-error (LRE) against the certified
 parameter values (nist.cc:67-72 reports Ceres' average LRE 9.4 / 41 wins).

@@ -1,6 +1,6 @@
 """2-D and 3-D pose-graph SLAM.
 
-TPU-native analog of ``examples/slam/pose_graph_2d/*`` and
+JAX analog of ``examples/slam/pose_graph_2d/*`` and
 ``examples/slam/pose_graph_3d/*``: g2o-format parsing, the relative-pose
 error terms (pose_graph_2d_error_term.h:52-105,
 pose_graph_3d_error_term.h:40-130), angle-manifold / Eigen-quaternion
@@ -323,11 +323,10 @@ def synthesize_sphere(num_poses: int = 200, seed: int = 0):
 
 
 def default_options() -> ct.SolverOptions:
-    """pose_graph_3d.cc uses LM + SPARSE_NORMAL_CHOLESKY; our exact
-    stand-in for that (CGNR driven to 1e-14) is direct-solver accurate
-    but wasteful inside LM, so the default here is truncated CGNR with
-    block-Jacobi — same minima, far fewer inner iterations. Pass
-    SPARSE_NORMAL_CHOLESKY explicitly for the direct-equivalent solves.
+    """pose_graph_3d.cc uses LM + SPARSE_NORMAL_CHOLESKY, which here is a
+    host factorization per step; the default here is truncated CGNR with
+    block-Jacobi on the device — same minima. Pass SPARSE_NORMAL_CHOLESKY
+    explicitly for the direct solves.
     """
     return ct.SolverOptions(
         linear_solver_type=ct.LinearSolverType.CGNR,

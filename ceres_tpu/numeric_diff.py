@@ -1,6 +1,6 @@
 """Numeric differentiation of residual functions.
 
-TPU-native analog of ``include/ceres/numeric_diff_cost_function.h`` /
+JAX analog of ``include/ceres/numeric_diff_cost_function.h`` /
 ``internal/numeric_diff.h:109-245`` (forward, central and Ridders'
 adaptive polynomial-extrapolation differences) and
 ``numeric_diff_options.h``.

@@ -1,9 +1,9 @@
-"""TPU kernel-level operations: segment-reduction plans and Pallas kernels.
+"""Kernel-level operations: segment-reduction plans and small-block algebra.
 
 The analog of the reference's ``small_blas.h`` / ``block_random_access_*``
-layer, redesigned for the MXU/VPU: host-built reduction plans replace
-lock-guarded random-access accumulation, and Pallas kernels cover the ops
-XLA cannot fuse well.
+layer: host-built reduction plans replace lock-guarded random-access
+accumulation, and batched closed-form small-block algebra replaces
+per-block dense kernels.
 """
 
 from ceres_tpu.ops.reduce import (

@@ -1,24 +1,24 @@
-"""Segment-reduction plans: TPU-fast replacements for scatter-add.
+"""Segment-reduction plans: host-planned replacements for scatter-add.
 
 The reference accumulates per-residual contributions into shared matrices
 behind locks (``internal/ceres/block_random_access_matrix.h``,
 ``program_evaluator.h:266-304`` per-thread gradient buffers,
-``schur_eliminator_impl.h:228-330`` ``rhs_locks_``). The naive functional
-analog — ``out.at[idx].add(contrib)`` with colliding indices — lowers to an
-XLA scatter, which TPUs execute (nearly) serially per colliding index and
-is the dominant cost of a BAL solve.
+``schur_eliminator_impl.h:228-330`` ``rhs_locks_``). The functional analog
+is ``out.at[idx].add(contrib)`` with colliding indices. A ``ReducePlan``
+is built ONCE on the host from the integer segment ids and picks how that
+accumulation is expressed:
 
-A ``ReducePlan`` is built ONCE on the host from the integer segment ids and
-turns every such accumulation into dense, compiler-friendly work:
-
-- ``onehot``: contributions are reduced with one matmul against a
-  precomputed one-hot matrix — the contraction rides the MXU. Used when
-  the number of groups is small (e.g. BA cameras).
+- ``onehot``: one matrix product against a precomputed one-hot matrix.
+  Used when the number of groups is small (e.g. BA cameras).
 - ``ell``: an ELL-style padded adjacency — for each group, the (padded)
   list of contributing batch rows; reduction = row gather + sum. Used when
   groups are many but the per-group fan-in is bounded (e.g. BA points:
   observations per point <= number of cameras).
-- ``scatter``: fallback to scatter-add for pathological fan-in skew.
+- ``sorted_segment``: sorted segment sum (``jax.ops.segment_sum`` with
+  ``indices_are_sorted``). Used for sorted ids whose fan-in varies enough
+  that ELL would pad (e.g. the Schur correction cells, one per
+  co-observing camera pair).
+- ``scatter``: scatter-add, for pathological fan-in skew.
 
 All plans reduce a ``(B, ...)`` contribution array to ``(G+1, ...)`` where
 row ``G`` is the dummy group (contributions to drop: constant blocks,
@@ -34,10 +34,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Tuning thresholds (host-side heuristics, see build_reduce_plan).
-ONEHOT_MAX_GROUPS = 288  # one-hot matmul: B x (G+1) operand stays small
+# Selection thresholds (host-side heuristics, see build_reduce_plan).
+ONEHOT_MAX_GROUPS = 288  # one-hot product: B x (G+1) operand stays small
 ELL_MAX_WASTE = 8.0  # ELL padding waste factor bound vs perfect packing
 ELL_MAX_FANIN = 4096  # hard bound on padded per-group fan-in
+# Sorted ids whose ELL padding waste exceeds this use sorted_segment: at
+# the 1.2M-observation BAL shapes on an H100, sorted segment sums beat
+# ELL 3.5x on the correction cells (waste ~2) and lose slightly on the
+# uniform point rows (waste 1.0); see PERF.md.
+SORTED_MIN_WASTE = 1.5
+
+KINDS = ("onehot", "ell", "sorted_segment", "scatter")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,138 +57,57 @@ class ReducePlan:
     onehot: Optional[jax.Array] = None
     # ell: (G+1, K) int32 rows into the padded (B+1) batch; pad value B.
     ell: Optional[jax.Array] = None
-    # scatter fallback: (B,) int32 segment ids (dummy = G).
+    # sorted_segment / scatter: (B,) int32 segment ids (dummy = G).
     seg: Optional[jax.Array] = None
-    # sorted (Pallas block-CSR kernel, ops/pallas_segment.py):
-    # (num_tiles, 1, TILE_B) local ids + (num_tiles, 1) window starts.
-    seg_tiles: Optional[jax.Array] = None
-    starts: Optional[jax.Array] = None
-    maxp: int = 0
-    tile_b: int = 0
-    # sorted_blocked (large-G, VMEM-bounded output blocks): scalar-
-    # prefetch routing arrays + static window geometry.
-    tile_src: Optional[jax.Array] = None
-    block_of_tile: Optional[jax.Array] = None
-    local_starts: Optional[jax.Array] = None
-    seg_block: int = 0
-    num_blocks: int = 0
-    padded_b: int = 0
 
 
 jax.tree_util.register_dataclass(
     ReducePlan,
-    data_fields=[
-        "onehot", "ell", "seg", "seg_tiles", "starts", "tile_src",
-        "block_of_tile", "local_starts",
-    ],
-    meta_fields=[
-        "kind", "num_groups", "maxp", "tile_b", "seg_block", "num_blocks",
-        "padded_b",
-    ],
+    data_fields=["onehot", "ell", "seg"],
+    meta_fields=["kind", "num_groups"],
 )
 
 
 def build_reduce_plan(
-    seg_ids: np.ndarray,
-    num_groups: int,
-    onehot_max_groups: int = ONEHOT_MAX_GROUPS,
-    allow_pallas: bool = True,
+    seg_ids: np.ndarray, num_groups: int, kind: Optional[str] = None
 ) -> ReducePlan:
     """Build a plan for reducing B rows into ``num_groups`` groups.
 
     ``seg_ids`` is (B,) int; ids outside [0, num_groups) go to the dummy
-    group (dropped by convention — callers slice ``[:G]``).
-
-    When the ids are SORTED (the builders order observations by their
-    e-block, reorder_program.cc analog), many groups exist, and the
-    program runs single-device on TPU, the plan uses the Pallas
-    block-CSR kernel (ops/pallas_segment.py) — 3-10x faster than the
-    ELL gather. ``allow_pallas=False`` (mesh-sharded programs: the
-    kernel is not GSPMD-partitionable) falls back to ELL.
+    group (dropped by convention — callers slice ``[:G]``). ``kind``
+    forces one of :data:`KINDS` instead of the size heuristic.
     """
     seg = np.asarray(seg_ids, dtype=np.int64).reshape(-1)
     B = seg.shape[0]
     G = int(num_groups)
     seg = np.where((seg < 0) | (seg >= G), G, seg)
+    if kind is not None and kind not in KINDS:
+        raise ValueError(f"unknown reduce plan kind {kind!r}")
 
-    if G + 1 <= onehot_max_groups:
+    if kind == "onehot" or (kind is None and G + 1 <= ONEHOT_MAX_GROUPS):
         onehot = np.zeros((G + 1, B), dtype=np.int8)
         onehot[seg, np.arange(B)] = 1
         return ReducePlan(
             kind="onehot", num_groups=G, onehot=jnp.asarray(onehot)
         )
 
-    if (
-        allow_pallas
-        and jax.default_backend() == "tpu"
-        and B >= 4096
-        and np.all(seg[1:] >= seg[:-1])
-    ):
-        from ceres_tpu.ops.pallas_segment import TILE_B, build_sorted_plan
-
-        local, starts, maxp, _ = build_sorted_plan(seg, G)
-        # Degenerate sortedness (one tile spanning most groups) loses
-        # the window locality — only worth it when windows are narrow.
-        if maxp <= 4 * TILE_B:
-            # Whole-output kernel keeps (G_pad, d) in VMEM, lane-padded
-            # to 128 — fine for small G; past ~8k groups switch to the
-            # output-blocked variant (ops/pallas_segment.py SEG_BLOCK)
-            # whose VMEM footprint is independent of G.
-            g_pad = -(-(G + 1 + maxp) // 8) * 8
-            if g_pad <= 8192:
-                return ReducePlan(
-                    kind="sorted",
-                    num_groups=G,
-                    seg_tiles=jnp.asarray(local),
-                    starts=jnp.asarray(starts),
-                    maxp=maxp,
-                    tile_b=TILE_B,
-                )
-            from ceres_tpu.ops.pallas_segment import build_blocked_plan
-
-            (tiles, src, bof, lstart, maxp_b, S, nblk, Bp) = (
-                build_blocked_plan(seg, G, TILE_B)
-            )
-            return ReducePlan(
-                kind="sorted_blocked",
-                num_groups=G,
-                seg_tiles=jnp.asarray(tiles),
-                tile_src=jnp.asarray(src),
-                block_of_tile=jnp.asarray(bof),
-                local_starts=jnp.asarray(lstart),
-                maxp=maxp_b,
-                tile_b=TILE_B,
-                seg_block=S,
-                num_blocks=nblk,
-                padded_b=Bp,
-            )
-
-    if (
-        allow_pallas
-        and jax.default_backend() == "tpu"
-        and B >= 4096
-        and G + 1 <= 4096
-    ):
-        # UNSORTED ids, table fits VMEM: full-height one-hot tiles
-        # (ops/pallas_segment.segment_sum_onehot) — callers skip the
-        # cell-sorting row gather entirely.
-        from ceres_tpu.ops.pallas_segment import TILE_B, build_tiled_plan
-
-        tiles, Bp = build_tiled_plan(seg, G)
-        return ReducePlan(
-            kind="onehot_tiled",
-            num_groups=G,
-            seg_tiles=jnp.asarray(tiles),
-            tile_b=TILE_B,
-            padded_b=Bp,
-        )
-
     counts = np.bincount(seg, minlength=G + 1)
     kmax = int(counts[:G].max()) if G > 0 else 0
-    waste_ok = G == 0 or (
-        kmax * G <= ELL_MAX_WASTE * max(int(counts[:G].sum()), 1)
-    )
-    if kmax <= ELL_MAX_FANIN and waste_ok:
+    waste = kmax * G / max(int(counts[:G].sum()), 1)
+    is_sorted = bool(np.all(seg[1:] >= seg[:-1]))
+    if kind == "sorted_segment" and not is_sorted:
+        raise ValueError("sorted_segment needs sorted segment ids")
+    if kind == "sorted_segment" or (
+        kind is None and is_sorted and waste > SORTED_MIN_WASTE
+    ):
+        return ReducePlan(
+            kind="sorted_segment",
+            num_groups=G,
+            seg=jnp.asarray(seg.astype(np.int32)),
+        )
+    if kind == "ell" or (
+        kind is None and kmax <= ELL_MAX_FANIN and waste <= ELL_MAX_WASTE
+    ):
         ell = np.full((G + 1, max(kmax, 1)), B, dtype=np.int32)
         order = np.argsort(seg, kind="stable")
         sorted_seg = seg[order]
@@ -205,62 +131,27 @@ def apply_reduce(plan: ReducePlan, contrib: jax.Array) -> jax.Array:
     B = contrib.shape[0]
     tail = contrib.shape[1:]
     G = plan.num_groups
+    flat = contrib.reshape(B, -1)
     if plan.kind == "onehot":
-        flat = contrib.reshape(B, -1)
+        # f32 sums stay f32-exact: the package pins the default matmul
+        # precision to "highest" (ceres_tpu/__init__.py).
         out = jnp.matmul(
             plan.onehot.astype(contrib.dtype),
             flat,
             preferred_element_type=flat.dtype,
         )
-        return out.reshape((G + 1,) + tail)
-    if plan.kind == "sorted":
-        from ceres_tpu.ops.pallas_segment import segment_sum_sorted
-
-        return segment_sum_sorted(
-            contrib,
-            plan.seg_tiles,
-            plan.starts,
-            G,
-            plan.maxp,
-            plan.tile_b,
-        )
-    if plan.kind == "sorted_blocked":
-        from ceres_tpu.ops.pallas_segment import segment_sum_sorted_blocked
-
-        return segment_sum_sorted_blocked(
-            contrib,
-            plan.seg_tiles,
-            plan.tile_src,
-            plan.block_of_tile,
-            plan.local_starts,
-            G,
-            plan.maxp,
-            plan.seg_block,
-            plan.num_blocks,
-            plan.padded_b,
-            plan.tile_b,
-        )
-    if plan.kind == "onehot_tiled":
-        from ceres_tpu.ops.pallas_segment import segment_sum_onehot
-
-        return segment_sum_onehot(
-            contrib,
-            plan.seg_tiles,
-            G,
-            plan.padded_b,
-            plan.tile_b,
-        )
-    if plan.kind == "ell":
-        # Flatten the tail BEFORE the gather: a (rows, 9, 9) gather is
-        # tile-padded (8,128) by XLA — 25x memory expansion at BAL scale
-        # (9.8 GB for 1.2M observations); (rows, 81) pads only the lane
-        # remainder (~1.6x).
-        flat = contrib.reshape(B, -1)
+    elif plan.kind == "ell":
+        # Flatten the tail BEFORE the gather: the (rows, d) gather keeps
+        # the contribution lane-packed instead of tiling a (rows, 9, 9)
+        # tail.
         pad = jnp.zeros((1, flat.shape[1]), dtype=flat.dtype)
         cp = jnp.concatenate([flat, pad], axis=0)
-        gathered = cp[plan.ell]  # (G+1, K, d)
-        return jnp.sum(gathered, axis=1).reshape((G + 1,) + tail)
-    flat = contrib.reshape(B, -1)
-    out = jnp.zeros((G + 1, flat.shape[1]), dtype=flat.dtype)
-    out = out.at[plan.seg].add(flat, mode="drop")
+        out = jnp.sum(cp[plan.ell], axis=1)  # (G+1, K, d) -> (G+1, d)
+    elif plan.kind == "sorted_segment":
+        out = jax.ops.segment_sum(
+            flat, plan.seg, num_segments=G + 1, indices_are_sorted=True
+        )
+    else:
+        out = jnp.zeros((G + 1, flat.shape[1]), dtype=flat.dtype)
+        out = out.at[plan.seg].add(flat, mode="drop")
     return out.reshape((G + 1,) + tail)

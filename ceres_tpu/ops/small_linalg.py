@@ -1,13 +1,13 @@
-"""Batched small-block linear algebra, TPU-shaped.
+"""Batched small-block linear algebra in closed form.
 
 The reference hand-rolls fixed-size dense kernels for the tiny blocks at
 the heart of bundle adjustment (``internal/ceres/small_blas.h:386,472``,
 ``invert_psd_matrix.h:44-78``): 2x2/3x3/4x4 point blocks, 6..16-wide
 camera blocks. XLA's generic ``Cholesky``/``TriangularSolve`` HLOs lower
-to blocked loop algorithms that are pathological for huge batches of
-tiny matrices on TPU (near-serial inner loops, no MXU use).
+to blocked loop algorithms built for large matrices, not for huge
+batches of tiny ones.
 
-This module provides the TPU-native equivalents as pure elementwise /
+This module provides batched equivalents as pure elementwise /
 einsum code that XLA fuses into neighbouring ops:
 
 - ``spd_inverse``: batched SPD inverse. Closed-form cofactor expansion
@@ -130,7 +130,7 @@ def _unrolled_spd_inverse(m, n: int):
 def spd_inverse(m: jax.Array) -> jax.Array:
     """Batched inverse of SPD matrices (..., n, n).
 
-    TPU analog of invert_psd_matrix.h:44 — explicit inverse so downstream
+    Analog of invert_psd_matrix.h:44 — explicit inverse so downstream
     solves become einsums that fuse into the CG loop body.
     """
     n = m.shape[-1]

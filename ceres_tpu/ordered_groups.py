@@ -7,7 +7,7 @@ numbers are eliminated first. Used as
 - ``SolverOptions.linear_solver_ordering``: group 0 = the e-blocks the
   Schur eliminator removes first (reorder_program.cc:446); the remaining
   groups order the reduced system (a fill-in concern for the reference's
-  sparse factorizations; numerically inert for the TPU dense/iterative
+  sparse factorizations; numerically inert for the dense/iterative
   reduced solves, but validated for API parity).
 - ``SolverOptions.inner_iteration_ordering``: each group must be an
   independent set; groups are visited in increasing order by the

@@ -1,6 +1,6 @@
 """Device-mesh parallelism for ceres_tpu.
 
-TPU-native replacement for the reference's entire threading backend
+JAX replacement for the reference's entire threading backend
 (``internal/ceres/thread_pool.h``, ``parallel_for.h:70-155``,
 ``context_impl.h`` — SURVEY.md §2.8): instead of a thread pool fanning
 residual blocks out to CPU workers with per-thread scratch and locks,

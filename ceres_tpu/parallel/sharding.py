@@ -1,6 +1,6 @@
 """Residual-block sharding over a device mesh.
 
-Parallelism model (SURVEY.md §2.12, mapped TPU-first):
+Parallelism model (SURVEY.md §2.12, mapped onto a device mesh):
 
 1. **Residual-block data parallelism** — the reference's
    ``ParallelFor(residual blocks)`` fan-out (program_evaluator.h:189)
@@ -71,7 +71,10 @@ def make_mesh_2d(
     slots its own observations feed, so the E'w reduction stays local to
     the pt column and only the small reduced camera system is
     all-reduced across the full mesh (schur_eliminator.h:143-152
-    additivity). DCN-friendly layout: put ``pt`` on the slower axis.
+    additivity). Every device reaches every other at the same rate
+    (NVLink, all to all), so the split between ``obs`` and ``pt`` follows
+    the algorithm alone: a larger ``pt`` axis shards the point system
+    further at the price of a wider camera-system all-reduce.
     """
     devs = jax.devices()[: obs * pt]
     return jax.make_mesh(
@@ -92,7 +95,7 @@ def _family_float_dtype(fam: Family, dtype=None):
     """The dtype validity masks must use: the program's evaluation dtype.
 
     A float64 mask silently promotes every masked residual/Jacobian product
-    to f64 — on TPU that means the whole pipeline runs in emulated f64.
+    to f64, and with it the whole f32 pipeline.
     Infer from the existing mask, then any float data leaf, else f64."""
     if dtype is not None:
         return jnp.dtype(dtype)
@@ -107,7 +110,7 @@ def _family_float_dtype(fam: Family, dtype=None):
     return jnp.dtype(jnp.float64)
 
 
-def pad_family(fam: Family, multiple: int, dtype=None, allow_pallas: bool = True) -> Family:
+def pad_family(fam: Family, multiple: int, dtype=None) -> Family:
     """Pad a family's batch to a multiple; padded rows carry mask 0."""
     B = fam.batch
     Bp = int(math.ceil(B / multiple) * multiple)
@@ -139,9 +142,7 @@ def pad_family(fam: Family, multiple: int, dtype=None, allow_pallas: bool = True
         from ceres_tpu.ops.reduce import build_reduce_plan
 
         reduce_plans = tuple(
-            build_reduce_plan(
-                np.asarray(b), p.num_groups, allow_pallas=allow_pallas
-            )
+            build_reduce_plan(np.asarray(b), p.num_groups)
             if p is not None
             else None
             for b, p in zip(bd_pos, fam.reduce_plans)
@@ -216,7 +217,7 @@ def _shard_family(fam: Family, mesh: Mesh, axis_name: str) -> Family:
                     ell=jax.device_put(p.ell, NamedSharding(mesh, P())),
                 )
             return ReducePlan(
-                kind="scatter", num_groups=p.num_groups, seg=put(p.seg)
+                kind=p.kind, num_groups=p.num_groups, seg=put(p.seg)
             )
 
         reduce_plans = tuple(put_plan(p) for p in fam.reduce_plans)
@@ -301,11 +302,9 @@ def shard_program(
         n *= mesh.shape[a]
     batch_axes = tuple(axes) if len(axes) > 1 else axis_name
     dt = getattr(program, "eval_dtype", None)
-    # The Pallas sorted-segment kernel is not GSPMD-partitionable;
-    # mesh-sharded programs rebuild their reduction plans without it.
     program.families = [
         _shard_family(
-            pad_family(f, n, dtype=dt, allow_pallas=False),
+            pad_family(f, n, dtype=dt),
             mesh,
             batch_axes,
         )

@@ -1,6 +1,6 @@
 """Problem construction: parameter blocks + residual families.
 
-TPU-native re-design of the reference's modeling layer
+JAX re-design of the reference's modeling layer
 (``include/ceres/problem.h:70-553``, ``internal/ceres/problem_impl.{h,cc}``,
 ``program.{h,cc}``, ``parameter_block.h``, ``residual_block.h``).
 
@@ -11,7 +11,7 @@ sizes, manifolds, loss structure) are stacked along a batch axis and
 evaluated with one ``vmap``/``jacfwd`` call. Parameters live in one flat
 ambient vector; per-family int32 gather/scatter index matrices connect block
 instances to it. This is the static-shape, gather/scatter formulation XLA
-needs to put the work on the MXU/VPU instead of chasing pointers.
+needs to batch the work instead of chasing pointers.
 
 The reference's Program::CreateReducedProgram (program.cc:291-415) drops
 constant/unused blocks; here constant blocks simply map to a dummy tangent
@@ -87,13 +87,12 @@ class _ResidualBatchRec:
 class PlusStructure:
     """Index arrays for the batched plus operator, registered as a pytree
     so jitted code receives them as arguments (never HLO constants —
-    large embedded literals cripple TPU compile times).
+    large embedded literals cripple compile times).
 
     ``eu_identity`` (static): the Euclidean part is the full identity
     map (every coordinate Euclidean-active, ambient == tangent order) —
     the common all-Euclidean/no-constant case, where plus is a plain
-    vector add with no gather/scatter (TPU scatters cost ~ms at BA
-    scale even with unique indices)."""
+    vector add with no gather/scatter."""
 
     eu_amb: jax.Array  # (nE,) ambient coords of Euclidean blocks
     eu_tan: jax.Array  # (nE,) matching tangent coords
@@ -172,10 +171,9 @@ class BlockGroups:
     When a size-group's coordinates form one contiguous ascending range
     of the tangent vector (``slice_of(T) = (start, G)``), gathers and
     scatters against that group lower to ``dynamic_slice`` /
-    ``dynamic_update_slice`` instead of general gather/scatter — XLA's
-    TPU codegen for a 200k-row gather costs ~60 s of COMPILE time while
-    the slice form is free (benchmarks/compile_micro3.py); runtime also
-    favors the slice. Duck-types the old plain-dict interface.
+    ``dynamic_update_slice`` instead of general gather/scatter, which
+    is slow to compile at 200k rows; runtime also favors the slice.
+    Duck-types the old plain-dict interface.
     """
 
     def __init__(self, idx, slices):
@@ -238,7 +236,7 @@ class Problem:
     Analog of ceres::Problem (problem.h:70-553), with both block-at-a-time
     and batched construction. Batched construction
     (:meth:`add_parameter_blocks`, :meth:`add_residual_blocks`) is the
-    TPU-native fast path — one call creates a whole residual family.
+    batched fast path — one call creates a whole residual family.
     """
 
     def __init__(self):
@@ -759,7 +757,7 @@ class Family:
     amb_slice: Tuple = ()
     # Per-arg segment-reduction plans (ceres_tpu.ops.reduce) turning the
     # batch -> block-diagonal-group accumulations (gradient, diag(J'J),
-    # block Jacobi) into MXU matmuls / ELL gathers instead of scatter-adds.
+    # block Jacobi) into one-hot matmuls / ELL gathers instead of scatter-adds.
     # None falls back to scatter (built lazily by Program).
     reduce_plans: Optional[Tuple[Any, ...]] = None
 
@@ -825,8 +823,7 @@ class Program:
         # evaluator gathers their values too) by ambient size: families
         # gather parameter blocks as table-row gathers
         # (x[amb_group] -> (G_A, A) table, then (B,) row picks) instead
-        # of (B, A) elementwise gathers — ~8x faster on TPU, where a
-        # general gather of B*A scalars is near-serial.
+        # of (B, A) elementwise gathers of B*A scalars.
         self.amb_groups: Dict[int, np.ndarray] = {}
         self.amb_pos_of_pid: Dict[int, Tuple[int, int]] = {}
         agroup_rows: Dict[int, List[np.ndarray]] = {}

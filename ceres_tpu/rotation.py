@@ -1,6 +1,6 @@
 """Rotation toolbox: conversions between angle-axis, quaternion, matrix, Euler.
 
-TPU-native analog of the reference's ``include/ceres/rotation.h:1-861``. The
+JAX analog of the reference's ``include/ceres/rotation.h:1-861``. The
 reference templates every routine on a scalar type so Jets can flow through;
 here every routine is a plain jnp function written branch-free with safe
 denominators, so it is differentiable (fwd and rev), ``vmap``-able and

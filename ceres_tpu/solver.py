@@ -1,6 +1,6 @@
 """Solver entry point: options, summary, and solve().
 
-TPU-native analog of ``include/ceres/solver.h:61-1127`` and
+JAX analog of ``include/ceres/solver.h:61-1127`` and
 ``internal/ceres/solver.cc:646-960``: the same option vocabulary and
 defaults, option cross-validation (solver.cc:714-730), the
 preprocess -> minimize -> summarize pipeline, and Brief/Full reports.
@@ -85,8 +85,8 @@ class SolverOptions:
     use_explicit_schur_complement: bool = False
     # dynamic_sparsity (solver.h, DynamicSparseNormalCholesky): the
     # reference re-analyzes factorization sparsity every iteration for
-    # numerically-sparse problems. The TPU path is matrix-free (CGNR), so
-    # sparsity changes are free; the flag is accepted and routes to CGNR.
+    # numerically-sparse problems. The device path is matrix-free (CGNR),
+    # so sparsity changes are free; the flag is accepted and routes to CGNR.
     dynamic_sparsity: bool = False
     use_mixed_precision_solves: bool = False
     max_num_refinement_iterations: int = 0
@@ -101,12 +101,12 @@ class SolverOptions:
     # (solver.h use_postordering; reorder_program.cc:114-180): improves
     # factor locality at the cost of a second symbolic pass.
     use_postordering: bool = False
-    # Evaluation dtype policy (TPU-specific extension): None keeps the
-    # Ceres default of float64. "float32" evaluates residuals/Jacobians
-    # and runs linear solves in f32 — on TPU, f64 is software-emulated
-    # (pathological compile times and ~20x slower kernels), so large
-    # solves should use float32 + use_mixed_precision_solves, which
-    # recovers step accuracy via f64 iterative refinement.
+    # Evaluation dtype policy (extension): None keeps the Ceres default of
+    # float64. "float32" evaluates residuals/Jacobians and runs linear
+    # solves in f32 (matrix products at full f32 precision, see
+    # ceres_tpu/__init__.py); use_mixed_precision_solves recovers step
+    # accuracy via f64 iterative refinement. Pair f32 with an
+    # f32-realistic function_tolerance (~1e-5).
     evaluation_dtype: Optional[str] = None
     use_spse_initialization: bool = False
     max_num_spse_iterations: int = 5
@@ -152,9 +152,9 @@ class SolverOptions:
     # Jacobian evaluation the minimizer performs.
     evaluation_callback: Optional[object] = None
 
-    # Multi-device execution (TPU analog of num_threads, solver.h:429).
+    # Multi-device execution (the analog of num_threads, solver.h:429).
     mesh: Optional[object] = None  # jax.sharding.Mesh for sharded evaluation
-    num_threads: int = 1  # accepted for API parity; ignored on TPU
+    num_threads: int = 1  # accepted for API parity; ignored
 
     def validate(self, num_tangent: int) -> Optional[str]:
         """Cross-validation analog of Solver::Options::IsValid
@@ -269,7 +269,7 @@ class SolverOptions:
 
     def _validate_linear_solver(self) -> Optional[str]:
         """OptionsAreValidForLinearSolver (solver.cc:377-403) adapted to
-        the TPU backend set (no vendor sparse libraries: every solver is
+        this backend set (no vendor sparse libraries: every solver is
         always 'built')."""
         lst = self.linear_solver_type
         pt = self.preconditioner_type
@@ -372,8 +372,9 @@ class SolverOptions:
         if self.linear_solver_type is not None:
             return self.linear_solver_type
         # Auto (preprocessor heuristic): dense for small tangent spaces,
-        # CGNR otherwise (the reference defaults to sparse Cholesky which
-        # maps to our CGNR stand-in, trust_region_preprocessor.cc:160-260).
+        # CGNR otherwise (the reference defaults to sparse Cholesky,
+        # trust_region_preprocessor.cc:160-260; here that path is a host
+        # solve per step, so the matrix-free CGNR stays on the device).
         if problem_info <= 1024:
             return LinearSolverType.DENSE_NORMAL_CHOLESKY
         return LinearSolverType.CGNR
@@ -442,7 +443,7 @@ class SolverSummary:
     def brief_report(self) -> str:
         """Analog of Summary::BriefReport (solver.cc:864)."""
         return (
-            f"Ceres-TPU Solver Report: Iterations: {len(self.iterations)}, "
+            f"ceres_tpu Solver Report: Iterations: {len(self.iterations)}, "
             f"Initial cost: {self.initial_cost:e}, "
             f"Final cost: {self.final_cost:e}, "
             f"Termination: {self.termination_type}"
@@ -587,7 +588,7 @@ def solve(options: SolverOptions, problem: Problem) -> SolverSummary:
         cast_program(program, options.evaluation_dtype)
 
     if options.mesh is not None:
-        # Shard residual families over the mesh — the TPU analog of
+        # Shard residual families over the mesh — the analog of
         # context()->EnsureMinimumThreads (solver.cc:787).
         from ceres_tpu.parallel import shard_program
 
@@ -633,8 +634,7 @@ def solve(options: SolverOptions, problem: Problem) -> SolverSummary:
         # whole minimize runs as ONE device computation with a per-
         # iteration trace, and the Summary/IterationSummary records are
         # reconstructed from the trace — identical bookkeeping, one
-        # host round-trip total instead of one per iteration (decisive
-        # on a remote-TPU link).
+        # host round-trip total instead of one per iteration.
         _cfg = _config_from_options(resolved, program)
         if fused_traced_eligible(resolved, program, _cfg):
             x_final = minimize_fused_traced(resolved, program, x0, summary)

@@ -1,11 +1,11 @@
 """TinySolver: self-contained fixed-size dense Levenberg-Marquardt.
 
-TPU-native analog of ``include/ceres/tiny_solver.h:30-398`` and
+JAX analog of ``include/ceres/tiny_solver.h:30-398`` and
 ``tiny_solver_autodiff_function.h``: a zero-allocation dense LM for small
 fixed-size problems — but here the *entire* solve (Jacobian via jacfwd,
 normal equations, damping update, convergence tests) is one
 ``lax.while_loop`` inside jit, so it can be ``vmap``ped to solve thousands
-of independent small problems in parallel on the MXU (the TPU replacement
+of independent small problems in parallel on the device (the replacement
 for calling TinySolver in a loop).
 """
 

@@ -1,6 +1,6 @@
 """Enums and shared type vocabulary.
 
-TPU-native analog of the reference's ``include/ceres/types.h:57-467``: the
+JAX analog of the reference's ``include/ceres/types.h:57-467``: the
 same solver/preconditioner/strategy/termination vocabulary, expressed as
 Python enums with string round-tripping (``types.cc`` StringToXxxType).
 """

@@ -1,6 +1,6 @@
 """Tracing, profiling, problem dumps and checkpointing.
 
-TPU-native analog of the reference's observability stack (SURVEY.md §5):
+JAX analog of the reference's observability stack (SURVEY.md §5):
 
 - ``EventLogger`` — scoped phase timer (event_logger.h:41-75); deltas are
   logged per phase and the total on ``finish``.
@@ -14,7 +14,7 @@ TPU-native analog of the reference's observability stack (SURVEY.md §5):
 - checkpoint/resume — the reference has none (SURVEY.md §5 checkpoint);
   Ceres users emulate it with IterationCallbacks. Here ``CheckpointManager``
   saves (x, radius, iteration) per iteration and can seed a resumed solve.
-- ``jax.profiler`` trace hooks for TPU timeline capture.
+- ``jax.profiler`` trace hooks for device timeline capture.
 """
 
 from __future__ import annotations
@@ -179,7 +179,7 @@ class CheckpointManager:
 
 def profiler_trace(log_dir: str):
     """Context manager: capture a jax.profiler trace of the enclosed solve
-    (TPU timeline; the analog of the reference's VLOG(3) event stream)."""
+    (device timeline; the analog of the reference's VLOG(3) event stream)."""
     import jax
 
     class _Trace:

@@ -6,7 +6,7 @@ point's preimage position on the contour. In the reference this is the
 showcase for ``dynamic_sparsity``: which control-point pair a residual
 touches changes as its preimage slides along the contour.
 
-TPU-native formulation: the control-point matrix is ONE vector block and
+batched formulation: the control-point matrix is ONE vector block and
 the dependence on the (dynamically chosen) segment is expressed with a
 differentiable gather — exactly the pattern the reference needs dynamic
 sparsity for, executed here as dense batched compute. The

@@ -1,7 +1,7 @@
 """Minimize 0.5 (10 - x)^2 with a hand-written analytic Jacobian —
 analog of examples/helloworld_analytic_diff.cc (SizedCostFunction).
 
-The TPU-native form of a user-supplied Jacobian is ``ct.analytic_cost``:
+The JAX form of a user-supplied Jacobian is ``ct.analytic_cost``:
 the hand-written derivative is attached as a ``jax.custom_jvp`` rule, so
 the solver's fused batched-forward-mode pipeline consumes it
 transparently (same batching, same manifold chain rule).

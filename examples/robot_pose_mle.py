@@ -3,7 +3,7 @@
 A robot drives down a corridor taking noisy odometry steps and noisy
 range readings to the far wall. The reference models each range reading
 with a DynamicAutoDiffCostFunction over ALL previous pose blocks
-(robot_pose_mle.cc:63-120). The TPU-native formulation keeps the N
+(robot_pose_mle.cc:63-120). The batched formulation keeps the N
 odometry values in ONE vector block: range residual i is a masked
 cumulative sum — a single batched family instead of N variable-arity
 cost functions (the framework's answer to dynamic-arity costs: reshape

@@ -1,7 +1,7 @@
 // Native runtime core for ceres_tpu: fast problem IO and host-side
 // preprocessor graph algorithms.
 //
-// TPU-native counterpart of the reference's native runtime layer: the
+// JAX counterpart of the reference's native runtime layer: the
 // orderings in internal/ceres/parameter_block_ordering.cc (greedy maximal
 // independent set for Schur elimination) and
 // internal/ceres/coordinate_descent_minimizer.cc (independent-set
@@ -389,7 +389,7 @@ int64_t canonical_views_cluster(int64_t num_cameras, int64_t num_points,
 // cluster-pair shared-point weights, rejecting edges that would create a
 // cycle or raise a degree above 2. The resulting chains make the
 // CLUSTER_TRIDIAGONAL preconditioner literally block tridiagonal, which
-// maps to a batched block-Thomas solve on TPU.
+// maps to a batched block-Thomas solve on the device.
 // Inputs: per-observation (cluster id, point id). Output: edges as
 // (a, b) pairs into edge_a/edge_b (capacity num_clusters-1); returns the
 // number of edges written.
@@ -457,7 +457,7 @@ int64_t max_weight_linear_forest(int64_t num_clusters, int64_t num_points,
 // ---------------------------------------------------------------------------
 // Simplicial sparse Cholesky with minimum-degree ordering.
 //
-// TPU-native counterpart of the reference's sparse direct stack
+// JAX counterpart of the reference's sparse direct stack
 // (internal/ceres/sparse_cholesky.h:71-112 factor-once/refactor-many
 // interface, suitesparse.h:306 CHOLMOD wrapper, and the AMD fill-reducing
 // ordering in reorder_program.cc). This runs on the host: symbolic

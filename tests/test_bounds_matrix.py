@@ -16,7 +16,7 @@ import pytest
 
 import ceres_tpu as ct
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 def _solve(p, max_num_iterations=100, **kw):

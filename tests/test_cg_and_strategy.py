@@ -15,7 +15,7 @@ from ceres_tpu.linear.cg import (
 )
 from ceres_tpu.trust_region import LevenbergMarquardtStrategy
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 def _op(A):

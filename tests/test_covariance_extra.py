@@ -14,7 +14,7 @@ import pytest
 import ceres_tpu as ct
 from ceres_tpu.covariance import Covariance, CovarianceOptions
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 def _linear_problem(sigma=1.0):

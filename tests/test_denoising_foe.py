@@ -1,8 +1,6 @@
 """Fields-of-Experts denoising convergence (denoising.cc parity).
 
-The FoE normal equations are ill-conditioned grid systems — the workload
-VERDICT flagged for the SPARSE_NORMAL_CHOLESKY stand-in (CGNR + block
-Jacobi). This gates:
+The FoE normal equations are ill-conditioned grid systems. This gates:
   - the solve converges (no silent CG stall) at reference tolerances,
   - SPARSE_NORMAL_CHOLESKY and CGNR+JACOBI reach the same cost,
   - CLUSTER-free preconditioning is enough to reach gradient-tolerance
@@ -49,8 +47,8 @@ def test_cgnr_jacobi_converges(crop_problem):
 
 
 def test_sparse_normal_cholesky_standin_matches_cgnr(crop_problem):
-    """The SPARSE_NORMAL_CHOLESKY stand-in (high-accuracy CGNR) must land
-    at the same cost as plain CGNR+JACOBI on the FoE system."""
+    """SPARSE_NORMAL_CHOLESKY (exact host Cholesky) must land at the same
+    cost as plain CGNR+JACOBI on the FoE system."""
     img, foe = crop_problem
     _, _, s1 = _solve(img, foe, max_num_iterations=40)
     _, _, s2 = _solve(

@@ -7,7 +7,7 @@ import pytest
 import ceres_tpu as ct
 from ceres_tpu.evaluator import Evaluator
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 def _powell_problem():

@@ -6,7 +6,7 @@ import pytest
 import ceres_tpu as ct
 from ceres_tpu.models import bal
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,7 @@ import numpy as np
 
 import ceres_tpu as ct
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 # A residual term whose hand-written (custom_jvp) derivative is correct

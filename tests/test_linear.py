@@ -20,7 +20,7 @@ from ceres_tpu.linear.preconditioners import (
     scalar_jacobi_preconditioner,
 )
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 def _random_problem(seed=0, n_blocks=6, block=3, n_res=40):

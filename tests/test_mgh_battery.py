@@ -12,7 +12,7 @@ import pytest
 
 import ceres_tpu as ct
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 # name -> (residual fn, x0, expected minimal cost 0.5*||r||^2, blocks)

@@ -8,7 +8,7 @@ import pytest
 import ceres_tpu as ct
 from ceres_tpu.gradient_checker import GradientChecker, check_problem_gradients
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 def test_tiny_solver_rosenbrock_residuals():

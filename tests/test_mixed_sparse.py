@@ -156,7 +156,7 @@ class TestWiredMixedSparse:
     @needs_native
     def test_mixed_f32_eval_sparse_schur(self):
         """f32 evaluation + f32-factor + f64 refinement still converges
-        to the f64 answer at bench tolerance (the TPU configuration)."""
+        to the f64 answer at bench tolerance (the bench's f32 configuration)."""
         from ceres_tpu.types import LinearSolverType
 
         exact = _solve(_bal_problem(), LinearSolverType.SPARSE_SCHUR, False)

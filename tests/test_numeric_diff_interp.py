@@ -25,7 +25,7 @@ from ceres_tpu.numeric_diff import (
 )
 from ceres_tpu.types import NumericDiffMethodType as M
 
-pytestmark = pytest.mark.tpu  # promoted to the real-device suite (r5, VERDICT #7)
+pytestmark = pytest.mark.device
 
 
 class TestNumericDiff:

@@ -21,7 +21,7 @@ from ceres_tpu.linear.schur import (
 )
 from ceres_tpu.models import bal
 
-pytestmark = pytest.mark.tpu  # curated real-device subset (CERES_TPU_TESTS=1)
+pytestmark = pytest.mark.device
 
 
 def _small_bal(seed=0, C=4, P=40, O=120):

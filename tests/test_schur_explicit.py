@@ -32,19 +32,7 @@ def test_reduce_plan_matches_scatter(kind_force, tail):
     rng = np.random.default_rng(0)
     B, G = 257, 19
     seg = rng.integers(-1, G + 1, size=B)  # includes dummy ids
-    if kind_force == "onehot":
-        plan = build_reduce_plan(seg, G, onehot_max_groups=G + 2)
-    elif kind_force == "ell":
-        plan = build_reduce_plan(seg, G, onehot_max_groups=0)
-    else:
-        plan = dataclasses.replace(
-            build_reduce_plan(seg, G, onehot_max_groups=0),
-            kind="scatter",
-            ell=None,
-            seg=jnp.asarray(
-                np.where((seg < 0) | (seg >= G), G, seg).astype(np.int32)
-            ),
-        )
+    plan = build_reduce_plan(seg, G, kind=kind_force)
     assert plan.kind == kind_force
     contrib = jnp.asarray(rng.standard_normal((B,) + tail))
     out = apply_reduce(plan, contrib)
@@ -65,9 +53,11 @@ def test_reduce_plan_kind_selection():
     assert build_reduce_plan(seg, 10).kind == "onehot"
     seg = np.arange(4000) % 2000
     assert build_reduce_plan(seg, 2000).kind == "ell"
-    # pathological skew: one giant group among many -> scatter
+    # pathological skew: one giant group among many -> no ELL; sorted
+    # ids take the sorted segment sum, unsorted ones scatter
     seg = np.concatenate([np.zeros(100000, np.int64), np.arange(2000)])
-    plan = build_reduce_plan(seg, 2000)
+    assert build_reduce_plan(seg, 2000).kind == "sorted_segment"
+    plan = build_reduce_plan(seg[::-1], 2000)
     assert plan.kind == "scatter"
 
 

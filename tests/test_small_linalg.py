@@ -6,7 +6,7 @@ import pytest
 
 from ceres_tpu.ops.small_linalg import spd_inverse, spd_solve
 
-pytestmark = pytest.mark.tpu  # curated real-device subset (CERES_TPU_TESTS=1)
+pytestmark = pytest.mark.device
 
 
 def _rand_spd(rng, b, n, cond=100.0):

@@ -11,7 +11,7 @@ import pytest
 
 import ceres_tpu as ct
 
-pytestmark = pytest.mark.tpu  # curated real-device subset (CERES_TPU_TESTS=1)
+pytestmark = pytest.mark.device
 
 
 def _solve_powell(linear_solver, **kw):

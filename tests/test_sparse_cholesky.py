@@ -162,10 +162,8 @@ class TestHostSparseNormalSolve:
         np.testing.assert_allclose(y, np.linalg.solve(H, rhs), rtol=1e-8)
 
     def test_pure_callback_in_jit(self):
-        # In-graph variant (CPU backend): solve_sparse_normal_cholesky
-        # under jit must match the host result.
-        if not sc.callbacks_supported():
-            pytest.skip("backend lacks host callbacks")
+        # In-graph variant: solve_sparse_normal_cholesky under jit must
+        # match the host result.
         from ceres_tpu.evaluator import Evaluator
 
         p = _tiny_residual_problem(seed=2)

@@ -16,7 +16,7 @@ import ceres_tpu as ct
 from ceres_tpu.types import LinearSolverType
 from ceres_tpu.utils import native
 
-pytestmark = pytest.mark.tpu
+pytestmark = pytest.mark.device
 
 needs_native = pytest.mark.skipif(
     native.get_lib() is None, reason="native core unavailable"
@@ -57,7 +57,7 @@ def test_reject_streak_matches_reference_path(lst):
     cached-transfer + speculative-factor path. (Radius alone is not
     enough: near-Gauss-Newton steps on a well-posed problem can all be
     accepted, and whether one is rejected flips with the platform's
-    rounding — observed CPU vs TPU.) The final cost must match the
+    rounding.) The final cost must match the
     DENSE reference to solver precision."""
     ref = _solve(LinearSolverType.DENSE_NORMAL_CHOLESKY)
     aggressive = _solve(lst, radius0=1e14, min_rel_decrease=0.9)
